@@ -5,8 +5,8 @@ experiments/*.py scripts.
 Backend mapping (reference run_slam.py:198-210 offers cpu/ocl/loihi-sim/
 loihi):
 
-* ``jit``  (default; aliases ``ocl``, ``tpu``) — the compiled XLA path on
-  the default accelerator.  This is the performance backend.
+* ``jit``  (default; alias ``ocl``) — the compiled XLA path on the
+  default accelerator.  This is the performance backend.
 * ``cpu`` — the compiled XLA path pinned to the host CPU backend.
 * ``numpy`` — the NumPy per-step reference interpreter (slow oracle;
   plays the role of nengo's CPU simulator).
@@ -33,7 +33,7 @@ DT = 0.001
 
 def add_common_args(parser: argparse.ArgumentParser, default_T=20.0):
     parser.add_argument("--backend", default="jit", type=str,
-                        help="jit|cpu|numpy|gated (ocl/tpu alias jit; "
+                        help="jit|cpu|numpy|gated (ocl aliases jit; "
                              "loihi-sim/loihi alias gated)")
     parser.add_argument("--path-data", default=None, type=str,
                         help="Path to a .npy (n_timesteps x domain_dim) "
@@ -58,7 +58,7 @@ def add_common_args(parser: argparse.ArgumentParser, default_T=20.0):
 
 def normalize_backend(name: str) -> str:
     name = name.lower()
-    if name in ("jit", "ocl", "tpu"):
+    if name in ("jit", "ocl"):
         return "jit"
     if name == "cpu":
         return "cpu"

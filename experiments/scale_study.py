@@ -1,7 +1,8 @@
 """Throughput vs model scale: where does the engine leave latency-bound?
 
-The flagship reference config (ssp_dim=97, ~82k LIF) is op-latency-bound —
-14 us/step regardless of FLOPs (VALIDATION.md "Step roofline").  Production
+The flagship reference config (ssp_dim=97, ~82k LIF) is op-latency-bound:
+its step time is set by the number of small kernels, not by FLOPs
+(PERF.md "Where the time goes").  Production
 deployments run larger maps: higher SSP dimensionality (finer spatial
 resolution / larger arenas at fixed length_scale) and proportionally larger
 memory populations.  This sweep measures how the compiled step scales with

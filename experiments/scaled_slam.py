@@ -1,12 +1,11 @@
 """Scaled-regime SLAM: BASELINE config 5 — 3-D domain, ssp_dim>=201,
 10k-neuron memory ensembles, vmapped multi-seed episodes on one chip.
 
-This is the regime that justifies a TPU build: at the reference's flagship
-scale (2-D, d=97, ~82k LIF) the compiled step is op-latency-bound and MFU
-is fractions of a percent; here the memory/OVC populations are 10x wider,
-the circular-convolution banks 2x, and B independent worlds (different
-paths AND landmark layouts, same built model) advance inside ONE vmapped
-``lax.scan`` — the matmuls are (B x) 10k-wide and actually feed the MXU.
+At the reference's flagship scale (2-D, d=97, ~82k LIF) the compiled step
+is op-latency-bound and MFU is fractions of a percent; here the memory/OVC
+populations are 10x wider, the circular-convolution banks 2x, and B
+independent worlds (different paths AND landmark layouts, same built model)
+advance inside ONE vmapped ``lax.scan`` — the matmuls are (B x) 10k-wide.
 
 Protocol scaling follows the reference CLI's defaults relative to its own
 scale (/root/reference/experiments/run_slam.py:23-34): random band-limited
@@ -15,7 +14,7 @@ tuned loop-closure hyperparameters (tune_loop_closure.py round 3).
 
 Per-seed worlds share one built model: landmark SPs and all network
 parameters are common; each episode's path, landmark placement and learned
-map (PES/Voja state in the vmapped carry) are independent — the TPU-native
+map (PES/Voja state in the vmapped carry) are independent — the one-program
 rendering of the reference's one-process-per-seed trial harness.
 
 Usage (defaults = the committed VALIDATION.md run):
@@ -43,8 +42,6 @@ from sspslam_tpu.nef.processes import TimeTable, clamp_table
 from sspslam_tpu.utils.sampling import Rd_sampling
 
 from experiments.common import DT, decode_output
-
-PEAK_F32_FLOPS = 99e12  # v5e f32 MXU peak (bench.py)
 
 
 def make_world(args, space, lm_space, seed, shared_scale, space_seed=0):
@@ -185,12 +182,16 @@ def main():
                     help="no simulation: lower ONE fully-unrolled segment "
                          "(seg=unroll=4) of the B-episode step, read XLA's "
                          "cost analysis (FLOPs, HBM bytes accessed per "
-                         "step), print the v5e roofline bounds and exit — "
+                         "step), print the roofline bounds and exit — "
                          "the scaled counterpart of step_roofline.py "
                          "(which is pinned to the flagship bench config)")
-    ap.add_argument("--peak-flops", type=float, default=PEAK_F32_FLOPS)
-    ap.add_argument("--peak-bw", type=float, default=819e9,
-                    help="HBM bandwidth B/s (TPU v5e)")
+    ap.add_argument("--peak-flops", type=float, default=None,
+                    help="peak FLOP/s for --roofline (default: the "
+                         "device's published peak at the step precision, "
+                         "utils/profiling.DEVICE_PEAKS)")
+    ap.add_argument("--peak-bw", type=float, default=None,
+                    help="HBM bytes/s for --roofline (default: the "
+                         "device's published bandwidth)")
     ap.add_argument("--measured-us", type=float, default=None,
                     help="with --roofline: measured us per EPISODE-step "
                          "at this config/B (from a prior run or --dp-sweep "
@@ -209,13 +210,22 @@ def main():
                          "saves ~1 min/seed/invocation of encode time "
                          "across campaign sweeps")
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (smoke tests)")
+                    help="run on the CPU backend (smoke tests); without "
+                         "it the run needs a GPU")
     args = ap.parse_args()
-    if args.cpu:
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     import jax
+    if args.cpu:
+        jax.config.update("jax_platforms", "cpu")
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit(f"no GPU found (devices: {jax.devices()}); "
+                         "pass --cpu for a CPU smoke run")
     import jax.numpy as jnp
+    from sspslam_tpu.utils.profiling import device_peaks, mfu, step_peak_flops
+    kind = jax.devices()[0].device_kind
+
+    def mfu_of(flops_per_s):
+        u = mfu(flops_per_s, kind, pd)
+        return None if u is None else round(u, 6)
 
     dt = DT
     n_steps = int(args.T / dt)
@@ -530,19 +540,32 @@ def main():
             cost = cost[0]
         fl = float(cost.get("flops", float("nan"))) / seg_r
         by = float(cost.get("bytes accessed", float("nan"))) / seg_r
-        t_c = fl / args.peak_flops
-        t_b = by / args.peak_bw
+        peak_fl = args.peak_flops or step_peak_flops(kind, pd)
+        peak_bw = args.peak_bw or (device_peaks(kind) or {}).get(
+            "hbm_bytes_per_s")
         out = {
             "metric": f"scaled roofline (ssp_dim={d}, B={B}, dtype={pd})",
+            "device_kind": kind,
             "flops_per_step": fl,
             "hbm_bytes_per_step": by,
             "bytes_per_episode_step": round(by / B, 1),
-            "compute_bound_us_per_episode_step": round(t_c * 1e6 / B, 3),
-            "bandwidth_bound_us_per_episode_step": round(t_b * 1e6 / B, 3),
-            "roofline_us_per_episode_step": round(
-                max(t_c, t_b) * 1e6 / B, 3),
+            # bounds are null for a device without published peaks
+            "compute_bound_us_per_episode_step": None,
+            "bandwidth_bound_us_per_episode_step": None,
+            "roofline_us_per_episode_step": None,
         }
-        if args.measured_us:
+        if peak_fl and peak_bw:
+            t_c = fl / peak_fl
+            t_b = by / peak_bw
+            out.update({
+                "compute_bound_us_per_episode_step": round(
+                    t_c * 1e6 / B, 3),
+                "bandwidth_bound_us_per_episode_step": round(
+                    t_b * 1e6 / B, 3),
+                "roofline_us_per_episode_step": round(
+                    max(t_c, t_b) * 1e6 / B, 3),
+            })
+        if args.measured_us and peak_fl and peak_bw:
             out["measured_us_per_episode_step"] = args.measured_us
             out["fraction_of_roofline"] = round(
                 max(t_c, t_b) * 1e6 / B / args.measured_us, 3)
@@ -555,7 +578,7 @@ def main():
             tabs = [tables_by_seed[0]] * Bx
             _, agg, t_c, done = run_episodes(tabs, n_steps, collect=False)
             r = {"B": Bx, "agg_steps_per_s": round(agg, 1),
-                 "mfu": round(flops_step * agg / PEAK_F32_FLOPS, 6),
+                 "mfu": mfu_of(flops_step * agg),
                  "compile_s": round(t_c, 1)}
             rows.append(r)
             print(json.dumps(r), flush=True)
@@ -615,7 +638,7 @@ def main():
         "value": round(agg, 1), "unit": "steps/s",
         "agg_steps_per_s": round(agg, 1),
         "us_per_episode_step": round(1e6 / agg, 3),
-        "mfu": round(flops_step * agg / PEAK_F32_FLOPS, 6),
+        "mfu": mfu_of(flops_step * agg),
         "flops_per_step_per_episode": flops_step,
         "median_err_slam": round(med_slam, 4),
         "per_seed": results,

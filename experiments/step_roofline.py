@@ -1,20 +1,21 @@
 """Roofline analysis of the full-SLAM step vs the measured device time.
 
-VERDICT r2 item 4 asks for a fused whole-step Pallas kernel OR a measured
-roofline showing the XLA scan is already near the hardware bound.  This
-script produces that evidence:
+How far is the compiled SLAM step from the hardware bound?  This script
+produces that evidence:
 
 1. builds the bench SLAM model and compiles one scan segment;
 2. reads XLA's own cost analysis (FLOPs, bytes accessed) per step;
-3. computes the two roofline bounds on the target chip —
+3. computes the two roofline bounds on the device —
      compute bound   = flops / peak_flops
      bandwidth bound = hbm_bytes / peak_bw
    and their max (the speed-of-light step time IF every operand restaged
-   from HBM; VMEM-resident constants make the true bound lower);
+   from device memory; operands that stay in cache make the true bound
+   lower);
 4. compares with the profiler-measured device time (device_time_probe).
 
-Peak numbers default to TPU v5e (v5 lite): 197 TFLOP/s bf16 /
-~99 TFLOP/s f32 MXU, 819 GB/s HBM.
+Peaks default to the device's published ones at the step's matmul
+precision (sspslam_tpu/utils/profiling.DEVICE_PEAKS); a device without
+them gets null bounds unless --peak-flops/--peak-bw are given.
 
 Usage: python experiments/step_roofline.py [--steps 2000]
 """
@@ -42,10 +43,12 @@ def main():
     # ONCE regardless of trip count)
     ap.add_argument("--seg", type=int, default=8)
     ap.add_argument("--scan-unroll", type=int, default=8)
-    ap.add_argument("--peak-flops", type=float, default=99e12,
-                    help="f32 MXU peak FLOP/s (TPU v5e)")
-    ap.add_argument("--peak-bw", type=float, default=819e9,
-                    help="HBM bandwidth B/s (TPU v5e)")
+    ap.add_argument("--peak-flops", type=float, default=None,
+                    help="peak FLOP/s (default: the device's published "
+                         "peak at the step precision)")
+    ap.add_argument("--peak-bw", type=float, default=None,
+                    help="device-memory bytes/s (default: the device's "
+                         "published bandwidth)")
     ap.add_argument("--measured-us", type=float, default=None,
                     help="profiler-measured device us/step "
                          "(device_time_probe); printed alongside if given")
@@ -98,18 +101,28 @@ def main():
     flops = flops_seg / args.seg
     byts = bytes_seg / args.seg
 
-    t_compute = flops / args.peak_flops
-    t_bw = byts / args.peak_bw
-    t_roof = max(t_compute, t_bw)
-
+    from sspslam_tpu.utils.profiling import device_peaks, step_peak_flops
+    kind = jax.devices()[0].device_kind
+    peak_flops = args.peak_flops or step_peak_flops(kind)
+    peak_bw = args.peak_bw or (device_peaks(kind) or {}).get(
+        "hbm_bytes_per_s")
     report = {
+        "device_kind": kind,
         "flops_per_step": flops,
         "hbm_bytes_per_step": byts,
-        "compute_bound_us": round(t_compute * 1e6, 3),
-        "bandwidth_bound_us": round(t_bw * 1e6, 3),
-        "roofline_us_per_step": round(t_roof * 1e6, 3),
+        # bounds are null for a device without published peaks
+        "compute_bound_us": None,
+        "bandwidth_bound_us": None,
+        "roofline_us_per_step": None,
     }
-    if args.measured_us:
+    if peak_flops and peak_bw:
+        t_compute = flops / peak_flops
+        t_bw = byts / peak_bw
+        t_roof = max(t_compute, t_bw)
+        report.update(compute_bound_us=round(t_compute * 1e6, 3),
+                      bandwidth_bound_us=round(t_bw * 1e6, 3),
+                      roofline_us_per_step=round(t_roof * 1e6, 3))
+    if args.measured_us and peak_flops and peak_bw:
         report["measured_us_per_step"] = args.measured_us
         report["fraction_of_roofline"] = round(t_roof * 1e6 / args.measured_us, 3)
     print(json.dumps(report, indent=1))

@@ -1,10 +1,10 @@
-"""sspslam_tpu — TPU-native spiking semantic SLAM framework.
+"""sspslam_tpu — spiking semantic SLAM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``nsdumont/Semantic-Spiking-Neural-SLAM-2023``: SSP vector-symbolic algebra,
 a NEF spiking-network engine compiled to a single jitted ``lax.scan`` step
 function, path-integration / associative-memory / SLAM model compositions,
-and mesh-sharded multi-chip execution.
+and mesh-sharded multi-device execution.
 """
 
 from .version import version as __version__

@@ -1,6 +1,5 @@
 from .associativememory import AssociativeMemory
 from .binding import CircularConvolution, Product, circconv
-from .fast_pathint import FastPathIntegrator
 from .pathintegration import (PathIntegration, PathIntegrationBCsGCs,
                               PathIntegrationGC, PathIntegrationOld,
                               PathIntegrationReencode,
@@ -15,7 +14,7 @@ __all__ = [
     "AssociativeMemory",
     "CircularConvolution", "Product", "circconv",
     "PathIntegration", "PathIntegrationOld", "PathIntegrationReencode",
-    "PathIntegrationGC", "PathIntegrationBCsGCs", "FastPathIntegrator",
+    "PathIntegrationGC", "PathIntegrationBCsGCs",
     "get_to_Fourier", "get_from_Fourier",
     "SLAMNetwork", "get_slam_input_functions", "get_slam_input_functions2",
     "get_anchor_input_functions",

@@ -2,9 +2,9 @@
 with attractor dynamics, holding an SSP self-position estimate in the Fourier
 domain.
 
-TPU-native re-design of reference pathintegration.py: the (d+1)//2 VCO
-populations become ONE batched EnsembleArray — per-step dynamics are a single
-(k, n, 3) einsum on the MXU plus fused elementwise neuron updates, instead of
+Re-design of reference pathintegration.py for a compiled step: the (d+1)//2
+VCO populations become ONE batched EnsembleArray — per-step dynamics are a
+single (k, n, 3) einsum plus fused elementwise neuron updates, instead of
 k separate small ops.  Velocity enters every VCO through one batched (k, 3, N)
 transform; the recurrent limit-cycle feedback is one batched decoded
 connection.  Fixed SSP<->Fourier reassembly matrices come from

@@ -8,8 +8,9 @@ output, fed back through a long 0.1 s synapse), and a neural gate — a
 dot product built from two squaring ensemble arrays, inhibiting the
 correction population.
 
-The reference needed this variant because Loihi cannot run host nodes; on
-TPU the gate maths could be a jnp node (see SLAMNetwork), but the all-neural
+The reference needed this variant because Loihi cannot run host nodes; in
+a compiled step the gate maths could be a jnp node (see SLAMNetwork), but
+the all-neural
 version is retained as a model family: it is the configuration whose
 dynamics were validated on neuromorphic hardware.
 """

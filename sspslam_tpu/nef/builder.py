@@ -1,6 +1,6 @@
 """Compile a declarative Network into a jit-compilable step plan.
 
-This is the TPU-native replacement for nengo's build+simulate machinery (the
+This is the compiled-step replacement for nengo's build+simulate machinery (the
 external L3 runtime the reference depends on — SURVEY.md §2.6): decoder
 solving, gain/bias computation, and the per-timestep op schedule all happen
 here, producing a pure function
@@ -220,7 +220,7 @@ def build(network: Network, dt: float = 0.001, seed: Optional[int] = None,
     """``fuse_ensembles``: merge same-shaped single ensembles (same n, dim,
     radius, neuron type; no Voja-learned encoders, not pre of a PES
     connection) into ONE batched group executed as a single einsum + neuron
-    update per step — a TPU op-count optimisation with bitwise-identical
+    update per step — an op-count optimisation with bitwise-identical
     parameters (each element keeps its own seeded draws).
 
     ``pad_batched_to``: pad every batched group's element axis up to a

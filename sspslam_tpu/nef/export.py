@@ -35,12 +35,25 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 from typing import Dict, Optional
 
 import jax
 import numpy as np
 
 __all__ = ["save_bundle", "ServingModel"]
+
+
+def _need_flatbuffers():
+    """``jax.export`` (de)serialization imports the pure-Python
+    ``flatbuffers`` runtime.  Where no such package is installed, the copy
+    vendored in ``sspslam_tpu/_vendor`` goes on the import path."""
+    try:
+        import flatbuffers  # noqa: F401
+    except ImportError:
+        sys.path.append(os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "_vendor"))
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +131,7 @@ def save_bundle(sim, path: str, segment_steps: int = 1000,
 
     ``segment_steps`` is baked into the exported program (scan length is
     static); serving calls consume input tables in chunks of this size.
-    ``platforms``: optional list (e.g. ``["cpu", "tpu"]``) to lower for
+    ``platforms``: optional list (e.g. ``["cpu", "cuda"]``) to lower for
     multiple backends; default is the exporting process's platform.
 
     The bundle captures ``sim``'s CURRENT carry as the initial state, so
@@ -170,6 +183,7 @@ def save_bundle(sim, path: str, segment_steps: int = 1000,
         _shape_structs(sim.params))
 
     os.makedirs(path, exist_ok=True)
+    _need_flatbuffers()
     with open(os.path.join(path, "step.jaxexport"), "wb") as f:
         f.write(exp.serialize())
 
@@ -243,6 +257,7 @@ class ServingModel:
     def __init__(self, path: str):
         with open(os.path.join(path, "meta.json")) as f:
             self.meta = json.load(f)
+        _need_flatbuffers()
         with open(os.path.join(path, "step.jaxexport"), "rb") as f:
             self._exp = jax.export.deserialize(bytearray(f.read()))
         data = np.load(os.path.join(path, "arrays.npz"))

@@ -6,7 +6,7 @@ a *description*: :mod:`sspslam_tpu.nef.builder` compiles a Network into a
 single jitted ``step(state, inputs) -> (state, outputs)`` function run under
 ``lax.scan``.  Nothing here touches device memory.
 
-Differences from nengo, chosen for the TPU compilation model:
+Differences from nengo, chosen for a whole-step compiled program:
 
 * ``EnsembleArray`` is first-class and compiles to *batched* (k, n, d)
   tensors — one einsum per array instead of k small matmuls.  Per-element
@@ -321,7 +321,7 @@ class Connection:
 
 class BatchedConnection:
     """Per-element connection into/out of an EnsembleArray with distinct
-    weights per element, kept batched for the MXU.
+    weights per element, kept batched (one einsum per step).
 
     * pre -> EnsembleArray with transforms (k, ens_dim, pre_size): element j
       receives transforms[j] @ pre_value.

@@ -19,8 +19,8 @@ class TimeTable:
     reference's input nodes are all closures indexing numpy arrays by t,
     e.g. slam.py:394), but the Simulator recognises the type and SLICES the
     array directly when tabulating — the generic per-step Python call loop
-    costs ~5-10 us/step/node on this host, which at path-integrator scale
-    rivals the entire on-device step.  Rows past the end repeat the last
+    costs microseconds per step per node on the host, which at
+    path-integrator scale rivals the entire on-device step.  Rows past the end repeat the last
     value (matching the closures' clamped indexing)."""
 
     def __init__(self, values, dt: float = 0.001):

@@ -9,7 +9,7 @@ that design is untenable: a host callback per dt forces a device round trip
 every millisecond of simulated time, five orders of magnitude slower than
 the compiled step.
 
-The TPU-idiomatic replacement is TICK-GRANULAR exchange: the device
+The compiled-step replacement is TICK-GRANULAR exchange: the device
 integrates a short fixed chunk of steps (one compiled, carry-donating
 program, reused forever), then the host reads the decoded probes and
 supplies the next chunk of inputs.  Control loops in robotics run at

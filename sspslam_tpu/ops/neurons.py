@@ -4,8 +4,8 @@ updates as pure jnp functions.
 These supply the capability the reference obtains from nengo's neuron types
 (``LIF``, ``LIFRate``, ``RectifiedLinear`` — selected at reference
 run_pathint.py:111-116) but as functional state transformers usable inside
-``lax.scan`` and Pallas kernels.  All state arrays broadcast: shapes may be
-(n,) or (k, n) for batched ensemble arrays.
+``lax.scan``.  All state arrays broadcast: shapes may be (n,) or (k, n)
+for batched ensemble arrays.
 """
 
 from __future__ import annotations
@@ -241,7 +241,7 @@ class SurrogateLIF(LIF):
     end-to-end (``sspslam_tpu.train``).
 
     The reference stack has no trainable-by-backprop path (nengo_dl fills
-    that role in the nengo ecosystem); on TPU it falls out of the jitted
+    that role in the nengo ecosystem); here it falls out of the jitted
     functional step: spikes become ``_spike_surrogate(v - 1)`` — 0/1 in the
     primal, a fast-sigmoid bump of width ``1/beta`` in the tangent — and all
     select/reset arithmetic is written multiplicatively so gradients flow

@@ -3,16 +3,16 @@
 The Loihi-synapse analog.  The reference's production target is 15-chip
 Loihi with 8-bit synaptic weights (/root/reference/experiments/
 run_slam.py:205-210 — ``n_chips: 15`` hardware options; Loihi synapses are
-<=8-bit mantissa+exponent).  The TPU-native rendering: the *static* matmul
+<=8-bit mantissa+exponent).  The rendering here: the *static* matmul
 parameters (solved decoders, encoders, fixed transforms — the bulk of the
-per-step HBM traffic at scale, see VALIDATION.md's d>=385 roofline) are
+per-step device-memory traffic at scale) are
 stored as int8 (or float8_e4m3) with one float32 scale per contracted
 slice, and dequantised *after* the contraction:
 
     act @ (q * s)  ==  (act @ q) * s      when s is constant along the
                                           contracted axis
 
-so the MXU reads 1 byte/weight from HBM, multiplies in bf16 (int8 values
+so the matmul reads 1 byte/weight from memory, multiplies in bf16 (int8 values
 <= 127 are exact in bf16), accumulates in f32 (``preferred_element_type``),
 and one cheap output-shaped multiply restores the scale.  The factorisation
 is exact — quantisation error comes only from the int8 rounding itself

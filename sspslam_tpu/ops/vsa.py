@@ -1,10 +1,10 @@
-"""Vector-symbolic-algebra primitives on TPU (pure jnp, jit-safe).
+"""Vector-symbolic-algebra primitives (pure jnp, jit-safe).
 
 Fractional-power SSP encoding, circular-convolution binding, unbinding,
 clean-up, and the fixed linear transforms used by the neural binding /
 path-integration networks.
 
-These are the TPU-native equivalents of the NumPy math in the reference
+These are the jnp equivalents of the NumPy math in the reference
 implementation (``/root/reference/sspslam/sspspace.py:252-532`` and
 ``/root/reference/sspslam/networks/binding.py:12-89``), re-derived from the
 underlying identities so everything is batched, statically shaped, and
@@ -57,9 +57,9 @@ __all__ = [
 # ---------------------------------------------------------------------------
 # Real half-spectrum DFT machinery
 # ---------------------------------------------------------------------------
-# The target TPU backend has no FFT or complex arithmetic; for the d~10^2
-# vectors used here, DFT-as-matmul on the MXU is the faster choice anyway.
-# All ops below are pure real arithmetic built from cached (d//2+1, d)
+# DFTs as real matmuls: no complex arithmetic and no FFT inside the step.
+# Whether jnp.fft is faster on the GPU at these d~10^2 is an open
+# question (ROADMAP).  All ops below are pure real arithmetic built from cached (d//2+1, d)
 # forward matrices and their (d, d//2+1) conjugate-symmetric inverses.
 
 @lru_cache(maxsize=64)
@@ -159,7 +159,7 @@ def encode_and_deriv(phase_matrix: jax.Array, x: jax.Array, length_scale):
 
 def bind(a: jax.Array, b: jax.Array) -> jax.Array:
     """Circular convolution a * b along the last axis (reference binding.py:12),
-    as real half-spectrum matmuls (TPU has no FFT; the MXU eats these)."""
+    as real half-spectrum matmuls."""
     d = a.shape[-1]
     ar, ai = rfft_pair(a)
     br, bi = rfft_pair(b)
@@ -230,8 +230,8 @@ def cleanup_from_set(sample_ssps: jax.Array, v: jax.Array,
     """Replace ``v`` with the most similar vector from ``sample_ssps``.
 
     The on-device equivalent of the clean-up node at reference
-    slam.py:212-215 — a single (m, d) @ (d,) matvec plus argmax, which is
-    cheap on the MXU/VPU instead of a host callback.
+    slam.py:212-215 — a single (m, d) @ (d,) matvec plus argmax inside the
+    step instead of a host callback.
 
     ``sim_dtype``: dtype for the similarity matmul.  The generic op
     defaults to float32 (exact comparison); performance-critical model call

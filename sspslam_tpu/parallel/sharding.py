@@ -1,8 +1,8 @@
 """Multi-chip execution: mesh construction and carry/param shardings.
 
 The reference's only multi-device story is Loihi's 15-chip place-and-route
-(run_slam.py:205-210).  The TPU-native counterpart (SURVEY.md §5) shards the
-*model state itself* over an ICI mesh with GSPMD:
+(run_slam.py:205-210).  The counterpart here (SURVEY.md §5) shards the
+*model state itself* over a device mesh with GSPMD:
 
 * the (d+1)//2 independent VCOs of the path integrator — a tensor-parallel
   axis needing communication only at the d-wide Fourier reassembly matvec

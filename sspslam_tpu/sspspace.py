@@ -1,6 +1,6 @@
 """Spatial Semantic Pointer (SSP) representation spaces.
 
-TPU-native re-implementation of the reference VSA layer
+Re-implementation of the reference VSA layer
 (``/root/reference/sspslam/sspspace.py``): the same public API —
 ``SPSpace``, ``SSPSpace``, ``RandomSSPSpace``, ``HexagonalSSPSpace``,
 ``RectangularSSPSpace`` with ``encode / decode / bind / invert /
@@ -216,8 +216,8 @@ class SSPSpace:
                num_samples=300, samples=None, **kwargs):
         """Decode SSPs back to domain points.
 
-        ``from-set``: argmax similarity over a sample bank (batched matmul —
-        the TPU-fast path). ``direct-optim``: from-set init + batched Newton
+        ``from-set``: argmax similarity over a sample bank (one batched
+        matmul). ``direct-optim``: from-set init + batched Newton
         refinement with the analytic Fourier-domain gradient/Hessian
         (replaces the per-row scipy L-BFGS-B loop of the reference,
         sspspace.py:359-396, with a vectorised on-device solver).
@@ -599,7 +599,7 @@ def _newton_refine(mat, unit_fssp_targets, x0, lo, hi, iters=20):
     Vectorised analogue of the reference's per-row L-BFGS-B refinement
     (sspspace.py:359-396): gradient and Hessian are analytic in the Fourier
     domain; all rows advance in parallel on device, in REAL arithmetic
-    (cos/sin — the TPU backend has no complex support).
+    (cos/sin, no complex numbers on the device).
 
     The reference's objective (np.inner on complex vectors, no conjugate)
     actually peaks at -x — a latent bug never hit because its experiments

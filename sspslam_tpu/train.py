@@ -1,5 +1,4 @@
-"""Gradient-based training through the simulator (the nengo_dl analog,
-TPU-native).
+"""Gradient-based training through the simulator (the nengo_dl analog).
 
 The engine's per-dt update is already a pure function
 ``step(state, xs, params)`` with every weight — scaled encoders, solved
@@ -25,8 +24,8 @@ composition, not a feature port:
 The reference stack has no trainable-by-backprop path at all (its decoder
 weights come from lstsq solves and PES; nengo_dl fills this role in the
 nengo ecosystem but is not part of the reference).  This module is a
-capability the TPU design gives for free and is therefore *additive* to
-parity — nothing in experiments/ depends on it.
+capability the functional-step design gives for free and is therefore
+*additive* to parity — nothing in experiments/ depends on it.
 """
 
 from __future__ import annotations
@@ -273,7 +272,7 @@ def fit(episode, params, xs, state0,
     sharded along ``batch_axis``; the trainable/frozen parameters and
     optimizer state are replicated.  The computation follows the data:
     each device runs its episode shard, and GSPMD inserts ONE gradient
-    all-reduce per update (the canonical DP layout — gradients ride ICI,
+    all-reduce per update (the canonical DP layout — gradients cross devices,
     parameters never move).  Results are numerically the unsharded batched
     fit (same loss sequence up to reduction order).
 

@@ -152,7 +152,31 @@ class TestBenchSmoke:
         line = json.loads(proc.stdout.strip().splitlines()[-1])
         assert line["unit"] == "steps/s" and line["value"] > 0
         assert line["vs_baseline"] and line["vs_baseline"] > 1
-        assert "tracking_cosine" in line and "mfu" in line
+        assert "tracking_cosine" in line
+        # the CPU has no published peak: MFU is null, never a default
+        assert line["device_kind"] == "cpu" and line["mfu"] is None
+
+
+class TestPrecisionProbe:
+    def test_precision_probe_cpu(self):
+        """Both precisions are timed (a b b a) and checked against the
+        NumPy interpreter; the package's own precision is restored."""
+        import json
+        out = run_script("precision_probe.py", [
+            "--cpu", "--ssp-dim", "31", "--pi-n-neurons", "60",
+            "--mem-n-neurons", "80", "--circonv-n-neurons", "30",
+            "--cleanup-samples", "10", "--world-T", "1",
+            "--segment-steps", "100", "--timed-steps", "200",
+            "--parity-steps", "40"], timeout=600)
+        line = json.loads(out.strip().splitlines()[-1])
+        res = line["precisions"]
+        assert set(res) == {"highest", "tensorfloat32"}
+        assert res["highest"]["dot_precisions"] == ["Precision.HIGHEST"]
+        assert res["tensorfloat32"]["dot_precisions"] == ["Precision.HIGH"]
+        for r in res.values():
+            assert len(r["steps_per_s"]) == 2 and min(r["steps_per_s"]) > 0
+            # the CPU ignores TF32: both pass the interpreter statistic
+            assert isinstance(r["parity"], dict)
 
 
 class TestValidateLoopClosureSmoke:
@@ -450,8 +474,8 @@ class TestScaledSlamSmoke:
 
     def test_roofline_cpu(self):
         """--roofline: lowers one unrolled segment, reads XLA cost
-        analysis, prints bounds without simulating (the TPU-scale result
-        is in VALIDATION.md 'Scaled roofline')."""
+        analysis, prints bounds without simulating.  The CPU has no
+        published peaks, so the test passes explicit ones."""
         import json
         out = run_script("scaled_slam.py", [
             "--cpu", "--T", "1.2", "--domain-dim", "2", "--ssp-dim", "31",
@@ -459,8 +483,10 @@ class TestScaledSlamSmoke:
             "--circonv-n-neurons", "30", "--n-landmarks", "6",
             "--view-rad", "0.6", "--limit", "2.0", "--seeds", "0,1",
             "--cleanup-samples", "6", "--roofline",
+            "--peak-flops", "67e12", "--peak-bw", "3.35e12",
             "--measured-us", "50"], timeout=900)
         line = json.loads(out.strip().splitlines()[-1])
+        assert line["device_kind"] == "cpu"
         assert line["flops_per_step"] > 0
         assert line["hbm_bytes_per_step"] > 0
         assert (line["roofline_us_per_episode_step"] ==

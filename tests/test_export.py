@@ -19,6 +19,8 @@ from sspslam_tpu.nef import (Connection, Ensemble, LIFRate, Network, Node,
                              PES, Probe, ServingModel, Simulator, TimeTable,
                              save_bundle)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def _table(n, dt=0.001):
     ts = dt * np.arange(1, n + 1)
@@ -240,8 +242,7 @@ except RuntimeError as e:
 """
         env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
         env["JAX_PLATFORMS"] = "cpu"
-        env["PYTHONPATH"] = ("/root/repo" + os.pathsep
-                             + env.get("PYTHONPATH", ""))
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
         r = subprocess.run([sys.executable, "-c", script], env=env,
                            capture_output=True, text=True, timeout=300)
         assert r.returncode == 0, r.stderr[-2000:]
@@ -249,10 +250,13 @@ except RuntimeError as e:
 
 
 class TestServingProcess:
-    def test_loads_without_model_graph(self, tmp_path):
+    @pytest.mark.parametrize("vendored", [False, True])
+    def test_loads_without_model_graph(self, tmp_path, vendored):
         """A fresh process loads the bundle and steps it WITHOUT ever
         constructing a Network / running the builder — the deployment
-        contract."""
+        contract.  ``vendored``: the process has no installed
+        ``flatbuffers`` package, so (de)serialization runs on the copy in
+        sspslam_tpu/_vendor."""
         n, seg = 80, 40
         sim, p, _ = _build(n)
         xs = sim._pack_cols(sim._tabulate_inputs(n))
@@ -261,7 +265,19 @@ class TestServingProcess:
         sim.run_steps(n, segment_steps=seg)
         np.save(tmp_path / "want.npy", sim.data[p])
 
-        script = f"""
+        hide = """
+import importlib.abc, importlib.machinery, sys
+class HideInstalled(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] != "flatbuffers":
+            return None
+        vendor = [p for p in sys.path if p.endswith("_vendor")]
+        if not vendor:
+            raise ModuleNotFoundError(name)
+        return importlib.machinery.PathFinder.find_spec(name, path or vendor)
+sys.meta_path.insert(0, HideInstalled())
+""" if vendored else ""
+        script = hide + f"""
 import os
 os.environ["JAX_PLATFORMS"] = "cpu"
 import numpy as np
@@ -272,14 +288,18 @@ m = ServingModel({str(str(tmp_path / 'b'))!r})
 xs = np.load({str(str(tmp_path / 'xs.npy'))!r})
 out = m.run(xs)["out_a"]
 np.testing.assert_array_equal(out, np.load({str(str(tmp_path / 'want.npy'))!r}))
-print("SERVED_OK", out.shape)
+again = jax.export.deserialize(m._exp.serialize())
+assert again.mlir_module_serialized == m._exp.mlir_module_serialized
+import flatbuffers
+print("SERVED_OK", out.shape, flatbuffers.__file__)
 """
         env = dict(os.environ)
-        env["PYTHONPATH"] = "/root/repo" + os.pathsep + env.get("PYTHONPATH", "")
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
         r = subprocess.run([sys.executable, "-c", script], env=env,
                            capture_output=True, text=True, timeout=300)
         assert r.returncode == 0, r.stderr[-2000:]
         assert "SERVED_OK" in r.stdout
+        assert ("_vendor" in r.stdout) == vendored
 
     def test_meta_contents(self, tmp_path):
         n, seg = 40, 20

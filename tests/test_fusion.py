@@ -1,5 +1,5 @@
 """Builder-level ensemble fusion: same-shaped single ensembles execute as
-ONE batched group (a TPU op-count optimisation) with identical parameters
+ONE batched group (an op-count optimisation) with identical parameters
 and near-identical trajectories to the unfused build."""
 
 import numpy as np

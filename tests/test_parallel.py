@@ -124,15 +124,12 @@ class TestShardMapVCO:
     def test_sharded_pi_matches_reference(self, space):
         """Explicit shard_map TP over the oscillator axis: identical output
         to the unsharded reference step (one psum per step)."""
-        import jax.numpy as jnp
-        from sspslam_tpu.models.fast_pathint import FastPathIntegrator
-        from sspslam_tpu.ops.pallas_kernels import vco_reference_step
-        from sspslam_tpu.parallel.shard_step import make_sharded_vco_scan
+        from sspslam_tpu.parallel.shard_step import (make_sharded_vco_scan,
+                                                     vco_initial_state,
+                                                     vco_params,
+                                                     vco_reference_step)
 
-        # mxu_decode=False: the shard_map path does its own mesh-padding and
-        # consumes unpadded (1, d)-fout-layout params
-        fpi = FastPathIntegrator(space, 40, seed=0, interpret=True,
-                                 mxu_decode=False)
+        params = vco_params(space, 40, seed=0)
         T = 30
         rng = np.random.default_rng(0)
         vels = (0.03 * rng.normal(size=(T, 2))).astype(np.float32)
@@ -140,15 +137,15 @@ class TestShardMapVCO:
         corr[0] = space.encode(np.array([[0.1, -0.1]])).flatten()
 
         mesh = make_mesh(8)
-        run = make_sharded_vco_scan(fpi.params, mesh, T)
+        run = make_sharded_vco_scan(params, mesh, T)
         state = run.initial_state()
         _, out = run(state, vels, corr)
         out = np.asarray(out)
 
-        ref_state = fpi.initial_state()
+        ref_state = vco_initial_state(params)
         ref = []
         for t in range(T):
-            ref_state, y = vco_reference_step(fpi.params, ref_state,
+            ref_state, y = vco_reference_step(params, ref_state,
                                               vels[t], corr[t])
             ref.append(np.asarray(y))
         ref = np.stack(ref)
